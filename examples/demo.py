@@ -1,6 +1,6 @@
 """Demo mirroring the reference's ``demo.ipynb``: the SpGEMM
 ``X @ X.T`` workload (500x5000 CSR, 21.2% dense, float64) timed against
-scipy, plus the gram-matrix path — and the TPU-only extras (device
+scipy, plus the gram-matrix path — and the extras (device
 containers, sharded execution).
 
 Run: ``python examples/demo.py``

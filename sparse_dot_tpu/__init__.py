@@ -1,8 +1,8 @@
-"""sparse_dot_tpu — a TPU-native sparse linear-algebra framework.
+"""sparse_dot_tpu — a JAX/XLA sparse linear-algebra framework.
 
 A from-scratch re-implementation of the capabilities of
 ``sparse_dot_mkl`` (flatironinstitute/sparse_dot, reference mounted at
-``/root/reference``) on JAX/XLA/Pallas: the polymorphic ``dot_product``
+``/root/reference``) on JAX/XLA: the polymorphic ``dot_product``
 (SpGEMM / SpMM / SpMV / GEMM over scipy CSR/CSC/BSR and numpy dense in
 float32/float64/complex64/complex128), ``gram_matrix`` (syrk),
 ``sparse_qr_solve``, a PARDISO-style direct solver, and CG/FGMRES

@@ -1,4 +1,4 @@
-"""Global configuration for the TPU-native sparse framework.
+"""Global configuration for the sparse framework.
 
 This module plays the role the reference's import-time interface selection
 plays (``/root/reference/sparse_dot_mkl/_mkl_interface/__init__.py:108-163``):
@@ -47,7 +47,8 @@ class _Config:
         # compute even on backends with native complex support (test hook).
         self.force_planar_complex = False
         # Density threshold above which sparse x dense multiplies densify the
-        # sparse operand and run on the MXU instead of gather/scatter.
+        # sparse operand and run one dense product instead of
+        # gather/scatter.
         self.densify_threshold = 0.05
         # Max number of gathered elements materialized at once by the
         # chunked scatter-add SpMM path (controls memory high-water mark).
@@ -55,14 +56,11 @@ class _Config:
         # Cache host->device transfers keyed by object identity +
         # content fingerprint (see formats.py).
         self.device_transfer_cache = True
-        # Hand-written Pallas block-sparse kernel (auto-disabled when
-        # the runtime cannot compile scalar-prefetch kernels).
-        self.pallas_bsr_enabled = True
         # Scatter-free padded row-block (ELL) SpMM: gather B rows per
         # 16-row CSR block and contract with a segment-indicator
-        # matmul.  TPU scatters are ~4x slower than gathers, so this
-        # wins at low density; disable to force the densify/scatter
-        # paths.
+        # matmul.  Taken below the backend's measured density
+        # crossover (``backend.spmm_crossovers``); disable to force the
+        # densify/scatter paths.
         self.ell_spmm_enabled = True
         # Row-BINNED ELL layout (power-of-two width bins with per-bin
         # segments) under the ELL SpMM path and the solver matvec
@@ -72,8 +70,7 @@ class _Config:
         self.ell_binned = True
         # Inspector-executor plane cache: containers cache their dense
         # numeric planes + bf16 structural indicator per data buffer so
-        # steady-state SpGEMM skips the densify scatters (the dominant
-        # cost: headline structural 17.8 -> 6.1 ms on TPU).  The byte
+        # steady-state SpGEMM skips the densify scatters.  The byte
         # budget bounds the per-container dense footprint; above it the
         # scatter-per-call path runs as before.
         self.spgemm_plane_cache = True
@@ -96,7 +93,7 @@ class _Config:
         self.spgemm_exact_pattern = False
         # Pin the expand-sort-compress kernel inside the any-size
         # sparse-output driver (tests / benchmarking the truly-sparse
-        # regime).  Default False: the driver routes to the MXU
+        # regime).  Default False: the driver routes to the dense
         # row-blocked body whenever densified B fits the device budget,
         # which is algorithmically far faster on dense-ish operands.
         self.spgemm_esc_force_sort = False
@@ -105,7 +102,7 @@ class _Config:
         # wide ones (f64 / planar complex); True/False pin it.
         self.spgemm_esc_perm_sort = "auto"
         # Windowed-gather ESC expansion (packed f32 rows, two gathers
-        # instead of seven — measured 15x per-gather).  False pins the
+        # instead of seven).  False pins the
         # scalar-gather kernel (tests; also auto-selected for widths
         # beyond f32's exact-integer range).  NOTE: the packed kernel
         # transports f64 values as hi/lo f32 pairs; each PRODUCT
@@ -125,10 +122,11 @@ class _Config:
         # Device-byte budget for the cached sort-free structures
         # (sidx + head_src per block).
         self.spgemm_esc_struct_cache_bytes = 1 << 28
-        # Ozaki-scheme f64 matmul (exact bf16 slice products on the
-        # MXU instead of XLA's ~0.4 TF/s f64 emulation): "auto" enables
-        # it on accelerator backends for large matmuls, "1"/"always"
-        # forces it everywhere (tests), "0"/"never" disables.
+        # Ozaki-scheme f64 matmul (exact bf16 slice products in place
+        # of an emulated f64 product): "auto" enables it for large
+        # matmuls on a backend without native f64 (never on CPU or
+        # GPU), "1"/"always" forces it everywhere (tests), "0"/"never"
+        # disables.
         self.ozaki = os.environ.get("SPARSE_DOT_OZAKI", "auto")
         # PARDISO dense-LU backing-store budget: systems whose dense
         # factorization would exceed this fall back to a matrix-free

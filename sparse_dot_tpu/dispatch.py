@@ -1,6 +1,6 @@
 """Public polymorphic multiply API.
 
-TPU-native re-implementation of the reference's public surface
+JAX/XLA re-implementation of the reference's public surface
 (``/root/reference/sparse_dot_mkl/sparse_dot.py``):
 
 * :func:`dot_product` — routes by operand sparsity/shape to SpGEMM, SpMM,
@@ -475,7 +475,7 @@ def _sharded_dot_product(matrix_a, matrix_b, cast=False, dense=False,
 def dot_product(matrix_a, matrix_b, cast=False, copy=True,
                 reorder_output=False, dense=False, debug=False, out=None,
                 out_scalar=None):
-    """Multiply two matrices with TPU-native kernels.
+    """Multiply two matrices with the JAX/XLA kernels.
 
     Drop-in analog of ``dot_product_mkl``
     (``/root/reference/sparse_dot_mkl/sparse_dot.py:18-152``): inputs may
@@ -487,7 +487,7 @@ def dot_product(matrix_a, matrix_b, cast=False, copy=True,
     * sparse @ vector / vector @ sparse -> SpMV
     * sparse @ dense / dense @ sparse -> SpMM
     * vector @ vector -> np.dot special case
-    * dense @ dense -> GEMM (MXU)
+    * dense @ dense -> GEMM
     """
     _deprecated_debug(debug)
     print_backend_debug()

@@ -9,9 +9,10 @@ arrays (``data``, ``indices``, ``indptr``) plus static shape metadata, and
 both the handle-layer analog *and* first-class inputs to every op — they
 can be passed through ``jit``, ``shard_map``, ``vmap`` etc.
 
-Complex support: TPU backends have no native complex dtypes, so on such
-backends complex matrices are stored *planar* — ``data`` has a leading
-axis of length 2 holding (real, imag) — and the op layer computes complex
+Complex support: on a backend without native complex dtypes (see
+``backend.has_native_complex``; CPU and GPU have them) complex matrices
+are stored *planar* — ``data`` has a leading axis of length 2 holding
+(real, imag) — and the op layer computes complex
 products as four real products sharing one sparsity pattern.  On CPU/GPU
 complex data is stored natively.
 
@@ -65,7 +66,7 @@ def _use_planar(dtype):
         return False
     if config.force_planar_complex:
         return True
-    return not _backend.supports_native_complex()
+    return not _backend.has_native_complex()
 
 
 def _split_complex(arr):
@@ -188,12 +189,12 @@ class SparseDeviceMatrix:
             )
         if tgt_complex:
             # real -> complex: follow the backend's complex storage
-            # policy (planar on TPU-like backends).
+            # policy (planar without native complex).
             from . import backend as _backend
             from .config import config as _cfg
 
             real_t = _COMPLEX_TO_REAL[dtype]
-            if (_backend.supports_native_complex()
+            if (_backend.has_native_complex()
                     and not _cfg.force_planar_complex):
                 return self.with_data(
                     self.data.astype(jnp.dtype(dtype)), dtype=dtype
@@ -324,10 +325,9 @@ class SparseDeviceMatrix:
 
     def ozaki_slices(self, data=None, contract=1):
         """Cached pre-extracted Ozaki bf16 slices + exponents for the
-        f64 MXU matmul — the deepest inspector-executor layer: with
+        f64 matmul — the deepest inspector-executor layer: with
         both the planes AND the slices cached, a steady-state f64
-        product is pure pair-product matmuls (the slice extraction's
-        ~1.2 ms/call on the headline operand disappears).  Keyed per
+        product is pure pair-product matmuls.  Keyed per
         (data buffer, contraction axis); returns (slices, exponents)
         or None (budget / unsupported contraction length / cache
         off)."""
@@ -657,7 +657,7 @@ class CSC(SparseDeviceMatrix):
 
 @jax.tree_util.register_pytree_node_class
 class BSR(SparseDeviceMatrix):
-    """Block CSR with square blocks — the MXU-aligned format.
+    """Block CSR with square blocks — dense blocks for batched matmuls.
 
     ``data`` is (nblocks, bs, bs) (or (2, nblocks, bs, bs) planar);
     ``indices`` holds block-column ids; ``indptr`` compresses block rows.
@@ -751,9 +751,8 @@ def _host_data(mat):
 
 def _expand_indptr(indptr, nnz):
     """indptr -> per-nonzero segment ids, on device (empty segments
-    included).  Uses marks+prefix-sum, not ``jnp.searchsorted`` — the
-    XLA:TPU searchsorted lowering is a serialized binary-search gather
-    that costs ~130 ns/element."""
+    included).  Uses marks+prefix-sum, not ``jnp.searchsorted`` (one
+    binary search per nonzero)."""
     if nnz == 0:
         return jnp.zeros((0,), dtype=indptr.dtype)
     from .ops import _xla
@@ -835,8 +834,8 @@ def sparse_output_type(x):
 
 _DEVICE_CLASSES = {"csr": CSR, "csc": CSC, "bsr": BSR}
 
-# f32's representable window: the dynamic range of f64 on backends
-# whose X64 rewriter emulates f64 as f32 pairs (TPU).
+# f32's representable window: the dynamic range of f64 on a backend
+# that emulates f64 as f32 pairs (one without native f64).
 _F64_RANGE_MAX = 3.4e38
 _F64_RANGE_MIN = 1e-38
 _warned_f64_range = [False]
@@ -844,7 +843,7 @@ _warned_f64_range = [False]
 
 def _warn_f64_range(data_np):
     """Warn ONCE when f64 host values exceed the active backend's
-    representable f64 window (X64 pair emulation on TPU: |x| > ~3.4e38
+    representable f64 window (f32-pair emulation: |x| > ~3.4e38
     transfers as inf, tiny magnitudes flush to 0 — measured at the
     device boundary, before any kernel).  MKL computes such inputs
     exactly, so silence here would be a silent wrong answer; CPU
@@ -860,7 +859,7 @@ def _warn_f64_range(data_np):
         return
     from . import backend as _backend
 
-    if _backend.supports_full_f64_range():
+    if _backend.has_native_f64():
         return
     # Only FINITE magnitudes outside the window warn: NaN/inf inputs
     # transfer faithfully on the pair backend and are the user's own
@@ -879,7 +878,7 @@ def _warn_f64_range(data_np):
 
     warnings.warn(
         "sparse_dot_tpu: float64 operand magnitudes exceed this "
-        "backend's representable f64 range (the X64 rewriter emulates "
+        "backend's representable f64 range (this backend emulates "
         "f64 with f32-pair arithmetic: |x| > ~3.4e38 transfers as inf, "
         "|x| < ~1e-38 flushes toward zero).  Results will saturate; "
         "run on a CPU backend for full-range f64.",

@@ -1,42 +1,61 @@
 """Native host-runtime bindings (ctypes over ``packing.cpp``).
 
-Builds lazily with g++ on first import if ``libsdtpacking.so`` is not
-present; every entry point has a NumPy fallback so the package works
-without a toolchain.
+The shared library is built from ``packing.cpp`` with g++ on first use,
+into ``libsdtpacking-<hash>.so`` beside the source (ignored by git).
+The name carries a hash of the source, so an edited source builds a new
+library and a stale one is never loaded, whatever the files' times.
+Every entry point has a NumPy fallback so the package works without a
+toolchain.
 """
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 
 import numpy as np
 
 _HERE = os.path.dirname(__file__)
-_SO = os.path.join(_HERE, "libsdtpacking.so")
 _SRC = os.path.join(_HERE, "packing.cpp")
 
 _lib = None
 
 
-def _build():
-    cmd = [
-        "g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-        _SRC, "-o", _SO,
-    ]
-    subprocess.run(cmd, check=True, capture_output=True)
+def library_path():
+    """Path of the library built from the current ``packing.cpp``."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_HERE, f"libsdtpacking-{digest}.so")
+
+
+def _build(so_path):
+    # Build under a temporary name and rename into place, so concurrent
+    # first uses (test workers) never load a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_HERE)
+    os.close(fd)
+    try:
+        subprocess.run(
+            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC,
+             "-o", tmp],
+            check=True, capture_output=True,
+        )
+        os.replace(tmp, so_path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load():
     global _lib
     if _lib is not None:
         return _lib
+    so_path = library_path()
     try:
-        if not os.path.exists(_SO) or (
-            os.path.getmtime(_SO) < os.path.getmtime(_SRC)
-        ):
-            _build()
-        lib = ctypes.CDLL(_SO)
-    except Exception:
+        if not os.path.exists(so_path):
+            _build(so_path)
+        lib = ctypes.CDLL(so_path)
+    except (OSError, subprocess.CalledProcessError):
         _lib = False
         return False
 

@@ -1,6 +1,6 @@
 // Host-side packing runtime for sparse_dot_tpu.
 //
-// The TPU compute path is JAX/XLA/Pallas; this library is the native
+// The device compute path is JAX/XLA; this library is the native
 // host runtime around it — the role MKL's C layer plays for the
 // reference (/root/reference/sparse_dot_mkl uses MKL for *all* native
 // work; here the host-side data movement is first-party C++):

@@ -1,7 +1,7 @@
 """Op layer.
 
 ``sparse_dot_tpu.ops.device`` (module ``_xla``) holds the pure functional,
-jit-compatible device kernels (the Pallas fast paths plug in underneath).
+jit-compatible device kernels.
 ``sparse_dot_tpu.ops.host`` holds the eager host-boundary wrappers used by
 the scipy-facing dispatch: numpy/scipy conversion, planar-complex
 decomposition, ``out=`` accumulate semantics.

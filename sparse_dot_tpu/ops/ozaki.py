@@ -1,10 +1,9 @@
-"""Ozaki-scheme float64 matmul on the MXU.
+"""Ozaki-scheme float64 matmul from bf16 tensor-core passes.
 
-TPU v5e has no float64 unit: XLA emulates f64 through the X64 rewriter
-(every op becomes a pair of 32-bit ops) and an f64 ``dot_general`` runs
-at ~0.4 TF/s — two orders of magnitude below the MXU's bf16 peak.  This
-module recovers near-f64 matmul accuracy from bf16 MXU passes using the
-Ozaki splitting scheme:
+A device without a native float64 unit emulates an f64 ``dot_general``
+far below its bf16 matrix rate.  This module recovers near-f64 matmul
+accuracy from bf16 passes with f32 accumulation using the Ozaki
+splitting scheme:
 
 1.  Each f64 operand is viewed as a double-float32 pair (``hi + lo``,
     exact to ~2^-49 relative — the same contract as the library's
@@ -15,7 +14,7 @@ Ozaki splitting scheme:
     power-of-two grid.  Slice extraction uses the Dekker round-to-grid
     trick ``(rem + 1.5*2^p) - 1.5*2^p`` — every step is exact in f32.
 3.  ``t`` is chosen so pairwise slice products accumulated over the
-    contraction length K stay below 2^24: the MXU's f32 accumulation of
+    contraction length K stay below 2^24: the f32 accumulation of
     bf16 products is then *exact* (integers on a common grid).
 4.  The ~D(D+1)/2 significant pairwise products (i + j < D) are summed
     in f64 (cheap elementwise), and the power-of-two row/column scales
@@ -65,10 +64,12 @@ def supported(k):
 
 
 def enabled(dtype, k, mkn):
-    """Policy gate, evaluated outside jit: Ozaki replaces the emulated
-    f64 ``dot_general`` on accelerator backends when the matmul is big
-    enough to amortize slice extraction.  ``SPARSE_DOT_OZAKI=0`` turns
-    it off; ``=1`` forces it everywhere (used by the accuracy tests)."""
+    """Policy gate, evaluated outside jit: Ozaki replaces an emulated
+    f64 ``dot_general`` on a backend without native f64 when the matmul
+    is big enough to amortize slice extraction.  A native-f64 backend
+    (CPU, GPU) always takes the plain f64 product under ``auto``.
+    ``SPARSE_DOT_OZAKI=0`` turns it off; ``=1`` forces it everywhere
+    (used by the accuracy tests)."""
     from ..config import config
 
     mode = getattr(config, "ozaki", "auto")
@@ -80,16 +81,27 @@ def enabled(dtype, k, mkn):
         return False
     if mode in ("1", "always", True):
         return True
-    from ..backend import default_platform
+    from ..backend import has_native_f64
 
-    return default_platform() != "cpu" and mkn >= (1 << 21)
+    return not has_native_f64() and mkn >= (1 << 21)
+
+
+# Clears the low 29 of f64's 52 mantissa bits: what remains has f32's
+# 24-bit significand.
+_HI_MASK = np.uint64(0xFFFFFFFFE0000000)
 
 
 def hilo(x64):
-    """f64 -> exact double-float32 (hi, lo) pair."""
-    hi = x64.astype(jnp.float32)
-    lo = (x64 - hi.astype(jnp.float64)).astype(jnp.float32)
-    return hi, lo
+    """f64 -> double-float32 (hi, lo) pair, hi + lo = x to ~2^-47.
+
+    ``hi`` is ``x`` with its mantissa truncated to f32 width by a bit
+    mask, so it converts to f32 exactly and ``x - hi`` is exact in f64.
+    Not ``hi = f32(x); lo = f32(x - f64(hi))``: XLA may drop the
+    f64 -> f32 -> f64 round trip as excess precision (XLA:GPU does by
+    default), which leaves ``lo = 0`` and f32 accuracy."""
+    bits = lax.bitcast_convert_type(x64, jnp.uint64)
+    hi64 = lax.bitcast_convert_type(bits & _HI_MASK, jnp.float64)
+    return hi64.astype(jnp.float32), (x64 - hi64).astype(jnp.float32)
 
 
 def _require_supported(k):
@@ -150,9 +162,9 @@ def _extract_slices(hi, lo, contract_axis, t, D, d_join):
 
 def _pow2_f64(e):
     """2.0**e as f64 for an int32 array ``e`` (|e| <= ~490), built from
-    four exact f32 ldexp quarters multiplied in f64 — f64
-    ``ldexp``/``frexp`` hit an unimplemented X64-rewriter path on TPU,
-    and the earlier two-half form overflowed f32 at |e| >= 255, which
+    four exact f32 ldexp quarters multiplied in f64 (no f64
+    ``ldexp``/``frexp``, which a pair-emulated f64 may lack); the
+    earlier two-half form overflowed f32 at |e| >= 255, which
     is reachable: both operands' row maxima near 3e38 (inside the
     hi|lo gate) give an exponent sum of 256 (review r5 finding)."""
     q = e // 4
@@ -167,7 +179,7 @@ def _pair_products_sum(a_sl, a_contract, b_sl, b_contract, D):
 
     The rhs slices are concatenated along their non-contract axis so
     slice i of the lhs multiplies slices 0..D-1-i of the rhs in ONE
-    MXU matmul (reads A_i from HBM once); the per-j blocks of the
+    matmul (reads A_i from device memory once); the per-j blocks of the
     product are then summed in f64 — their slice weights are already
     baked into the slice values, so the blocks just add.
     """
@@ -198,7 +210,7 @@ def _pair_products_sum(a_sl, a_contract, b_sl, b_contract, D):
 
 @partial(jax.jit, static_argnames=("a_contract", "b_contract"))
 def matmul_hilo(a_hi, a_lo, b_hi, b_lo, a_contract=1, b_contract=0):
-    """f64-accurate product of two double-f32 operands on the MXU.
+    """f64-accurate product of two double-f32 operands from bf16 passes.
 
     ``a_contract`` / ``b_contract`` name the contraction axis of each
     operand; output is (lhs non-contract, rhs non-contract) in f64.
@@ -308,7 +320,7 @@ def syrk_from_slices(a_sl, a_e, contract=1):
 @partial(jax.jit, static_argnames=("a_contract", "b_contract"))
 def matmul_f64(a, b, a_contract=1, b_contract=0):
     """Dense f64 x f64 matmul via the Ozaki scheme (cblas_dgemm analog
-    for TPU)."""
+    for a device without native f64)."""
     ah, al = hilo(a)
     bh, bl = hilo(b)
     return matmul_hilo(ah, al, bh, bl, a_contract=a_contract,

@@ -2,10 +2,10 @@
 
 The reference has no distributed execution at all — its only parallelism
 is MKL's in-process OpenMP threading (``README.md:9-10``,
-``_cfunctions.py:742-747``).  This package is the scaling layer the TPU
+``_cfunctions.py:742-747``).  This package is the scaling layer this
 build adds: matrices are row/block-partitioned over a
 ``jax.sharding.Mesh`` and ops run under ``shard_map`` with XLA
-collectives over ICI/DCN.
+collectives between the devices.
 """
 
 import numpy as np

@@ -3,18 +3,17 @@
 The reference is strictly single-process — its only parallelism is
 MKL's in-process OpenMP threading (``README.md:9-10``,
 ``_mkl_interface/_cfunctions.py:742-747``).  This module is the
-TPU-native scaling layer past one host: it wraps
+scaling layer past one host: it wraps
 ``jax.distributed.initialize`` (the JAX runtime's coordination service
-over DCN), and provides multihost-aware array placement so the sharded
+across hosts), and provides multihost-aware array placement so the sharded
 constructors in :mod:`sparse_dot_tpu.parallel.ops` work unchanged when
 the mesh spans processes.
 
 Design notes
 ------------
-* On TPU pods the coordinator/process topology is auto-detected from
-  the TPU metadata server, so ``initialize()`` with no arguments is the
-  common call.  Explicit ``coordinator_address``/``num_processes``/
-  ``process_id`` cover CPU/GPU clusters and tests.
+* ``initialize()`` with no arguments defers to JAX's own cluster
+  detection.  Explicit ``coordinator_address``/``num_processes``/
+  ``process_id`` cover clusters it does not detect, and tests.
 * In a multi-process program each process only *addresses* its local
   devices.  ``jax.device_put(host_array, NamedSharding)`` requires every
   shard to be addressable, so cross-process placement goes through
@@ -49,38 +48,17 @@ def is_initialized():
         return False
 
 
-def _tpu_platform_hint():
-    """TPU detection WITHOUT initializing the XLA backend.
-
-    ``jax.default_backend()`` initializes backends, after which
-    ``jax.distributed.initialize`` raises — exactly on the TPU pods
-    the auto-detection exists for.  Environment sniffing is the only
-    side-effect-free signal."""
-    import os
-
-    plats = (os.environ.get("JAX_PLATFORMS", "")
-             or os.environ.get("JAX_PLATFORM_NAME", "")).lower()
-    if "tpu" in plats:
-        return True
-    return any(
-        os.environ.get(v)
-        for v in (
-            "TPU_WORKER_HOSTNAMES", "TPU_WORKER_ID",
-            "CLOUD_TPU_TASK_ID", "MEGASCALE_COORDINATOR_ADDRESS",
-            "TPU_SKYLARK_HOST_BOUNDS",
-        )
-    )
-
-
 def initialize(coordinator_address=None, num_processes=None,
                process_id=None, local_device_ids=None, **kwargs):
     """Join (or start) the multi-process JAX runtime.
 
     The analog of the reference's import-time MKL init
     (``_mkl_interface/__init__.py:108-163``) for the scaling dimension
-    the reference never had.  No-ops when already initialized.  On TPU
-    pods call with no arguments (topology is auto-detected); elsewhere
-    pass the coordinator's ``host:port`` plus the process grid.  Must
+    the reference never had.  No-ops when already initialized.  With no
+    arguments, ``jax.distributed.initialize``'s own cluster detection
+    (Slurm, Open MPI, ...) decides, and a process outside any detected
+    cluster stays single-process; otherwise pass the coordinator's
+    ``host:port`` plus the process grid.  Must
     run before the first JAX backend query in the process (a JAX
     constraint; the gating here is careful not to trigger one).
 
@@ -88,7 +66,7 @@ def initialize(coordinator_address=None, num_processes=None,
     :func:`process_info`).
     """
     auto = coordinator_address is None and num_processes is None
-    if not is_initialized() and (not auto or _tpu_platform_hint()):
+    if not is_initialized():
         try:
             jax.distributed.initialize(
                 coordinator_address=coordinator_address,
@@ -100,9 +78,8 @@ def initialize(coordinator_address=None, num_processes=None,
         except (ValueError, RuntimeError):
             if not auto:
                 raise
-            # TPU-flavored environment without a resolvable cluster
-            # (single-host containers set TPU env vars without pod
-            # metadata): stay single-process.
+            # JAX's cluster detection found no cluster (or the backend
+            # already runs): stay single-process.
     return process_info()
 
 
@@ -146,7 +123,7 @@ def gather_to_host(x):
     """Global device array -> host numpy array on every process.
 
     Fully-addressable arrays (single process, or replicated outputs)
-    convert directly; otherwise the shards are all-gathered over DCN
+    convert directly; otherwise the shards are all-gathered across processes
     first (``multihost_utils.process_allgather`` with tiled layout
     reassembles the global value).
     """

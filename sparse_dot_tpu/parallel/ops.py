@@ -1,4 +1,4 @@
-"""Mesh-sharded sparse ops (SPMD over ICI/DCN).
+"""Mesh-sharded sparse ops (SPMD over the device interconnect).
 
 The scaling layer the reference never had (its parallelism was MKL's
 OpenMP threading in one address space).  Layout strategy per
@@ -33,6 +33,11 @@ from .. import formats
 from ..ops import _xla
 
 
+# A float32 product at DEFAULT may run in TF32 on a GPU; every product
+# here asks for full precision.
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
 def _ceil_div(a, b):
     return -(-a // b)
 
@@ -44,8 +49,8 @@ class ShardedCSR:
     ``rows``/``cols``/``vals`` are (S, nnz_pad); ``rows`` holds
     LOCAL row ids with pad entries pointing at ``m_local`` (dropped).
 
-    Complex matrices are stored PLANAR (the TPU complex strategy used
-    throughout the package): ``vals`` gains a channel axis —
+    Complex matrices are stored PLANAR (the package's strategy for
+    backends without native complex): ``vals`` gains a channel axis —
     (S, 2, nnz_pad) — holding the real/imaginary parts, ``planar`` is
     True, and the sharded kernels run the 4-real-product decomposition
     inside one SPMD program.
@@ -307,7 +312,7 @@ def sharded_spmv_halo(mesh, A, x, halo=1, axis="rows"):
     y = A @ x with x row-sharded like A and each device receiving only
     the x segments of its ±``halo`` ring neighbors (2·halo ``ppermute``
     hops of k_local elements each) instead of an all-gather of the full
-    vector — the ICI-local pattern of SURVEY §7 (halo/remote-segment
+    vector — the neighbour-only pattern of SURVEY §7 (halo/remote-segment
     exchange).  Communication per device is ``2·halo·k_local`` elements
     versus ``S·k_local`` for the replicated/all-gather formulation.
 
@@ -347,7 +352,7 @@ def sharded_spmv_halo(mesh, A, x, halo=1, axis="rows"):
         xb = x_block.reshape(k_local)
         # Pull halo segments: x_{s+h} arrives by rotating "down" the
         # ring h times, x_{s-h} by rotating "up".  Each hop is issued
-        # before its successor so transfers pipeline on ICI.
+        # before its successor so transfers pipeline.
         down = [(i, (i - 1) % S) for i in range(S)]  # recv from right
         up = [(i, (i + 1) % S) for i in range(S)]    # recv from left
         right_parts = []
@@ -489,7 +494,7 @@ def sharded_spmm_2d(mesh, A_colsharded, b, axis="cols"):
 
 
 # ---------------------------------------------------------------------------
-# Ring SpMM: B sharded (never replicated), blocks rotate over ICI
+# Ring SpMM: B sharded (never replicated), blocks rotate between devices
 # ---------------------------------------------------------------------------
 
 
@@ -565,7 +570,7 @@ def sharded_spmm_ring(mesh, A_grid, b, axis="rows", _inspect=False):
     (:func:`shard_csr_grid`), b row-sharded along k.  At step t device s
     multiplies its column block (s + t) mod S against the b shard it
     currently holds, then the b shards rotate one hop with ``ppermute``
-    — the canonical ICI ring: per-device memory is |A|/S + |b|/S and
+    — the canonical ring: per-device memory is |A|/S + |b|/S and
     each step's transfer can overlap the next step's compute.  No
     operand is ever replicated."""
     _check_mesh_axis(mesh, axis, A_grid.n_shards)
@@ -612,14 +617,14 @@ def sharded_spmm_ring(mesh, A_grid, b, axis="rows", _inspect=False):
         # Double-buffered schedule (round 4, SURVEY §7:497-499): each
         # step's ppermute of the b shard is issued BEFORE the compute
         # that consumes the current shard — both depend only on b_cur,
-        # so the transfer can ride ICI UNDER the gather/scatter work of
+        # so the transfer can run UNDER the gather/scatter work of
         # the same step (which is exactly the overlap the double-buffer
         # needs; cross-iteration overlap through the fori_loop barrier
         # is not required).  The final rotation, whose result nobody
         # reads, is peeled off as a compute-only tail step — S-1
         # permutes for S steps.  (A fully unrolled variant measured
         # 2.4x SLOWER on the virtual CPU mesh — per-op thunk overhead
-        # without any ICI to overlap — and was reverted; structural
+        # without any link to overlap — and was reverted; structural
         # proof of the schedule lives in tests/test_parallel.py.)
 
         def _compute(t, b_now, accs):
@@ -885,7 +890,7 @@ def sharded_gram(mesh, A, axis="rows"):
             rows[0], cols[0]
         ].add(vals[0], mode="drop")
         partial = jnp.dot(
-            a_local.T, a_local, precision=jax.lax.Precision.HIGHEST
+            a_local.T, a_local, precision=_HIGHEST
         )
         return jax.lax.psum(partial, axis)
 
@@ -938,14 +943,14 @@ def sharded_cg(mesh, A, b, tol=1e-10, maxiter=1000, axis="rows"):
         def body(state):
             x, r, p, rs, it = state
             ap = mv_pad(p)
-            alpha = rs / jnp.vdot(p, ap)
+            alpha = rs / jnp.vdot(p, ap, precision=_HIGHEST)
             x = x + alpha * p
             r = r - alpha * ap
-            rs_new = jnp.vdot(r, r)
+            rs_new = jnp.vdot(r, r, precision=_HIGHEST)
             p = r + (rs_new / rs) * p
             return (x, r, p, rs_new, it + 1)
 
-        state = (x0, r0, r0, jnp.vdot(r0, r0), 0)
+        state = (x0, r0, r0, jnp.vdot(r0, r0, precision=_HIGHEST), 0)
         x, _, _, rs, it = jax.lax.while_loop(cond, body, state)
         return x, rs, it
 
@@ -1064,16 +1069,16 @@ def _cgls_program(mesh, axis, n_shards, m_local, k, tol, maxiter):
         def body(state):
             x, r, p, s_norm2, it = state
             q = fwd(p)
-            alpha = s_norm2 / jnp.vdot(q, q)
+            alpha = s_norm2 / jnp.vdot(q, q, precision=_HIGHEST)
             x = x + alpha * p
             r = r - alpha * q
             s = adj(r)
-            s_norm2_new = jnp.vdot(s, s)
+            s_norm2_new = jnp.vdot(s, s, precision=_HIGHEST)
             beta = s_norm2_new / s_norm2
             p = s + beta * p
             return (x, r, p, s_norm2_new, it + 1)
 
-        state = (x0, r0, s0, jnp.vdot(s0, s0), 0)
+        state = (x0, r0, s0, jnp.vdot(s0, s0, precision=_HIGHEST), 0)
         x, r, _, s2, it = jax.lax.while_loop(cond, body, state)
         return d * x, jnp.linalg.norm(r), it
 

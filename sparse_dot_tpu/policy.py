@@ -1,7 +1,7 @@
 """The behavioral-contract layer: dtype policy, shape sanity, layout
 probing, and ``out=`` validation.
 
-This is the TPU build's equivalent of the reference's policy half of
+This is this build's equivalent of the reference's policy half of
 ``/root/reference/sparse_dot_mkl/_mkl_interface/_common.py`` — the
 semantics a drop-in user relies on:
 

@@ -35,6 +35,10 @@ from ..interface import (
 from ..ops import _xla
 from ..ops.host import coo_parts
 
+# Every product in the solver loops asks for full precision: a float32
+# product at DEFAULT may run in TF32 on a GPU (~1e-3 relative).
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 DEFAULT_ATOL = 0.0
 DEFAULT_RTOL = 1e-6
 DEFAULT_MAX_ITER = 1000
@@ -87,7 +91,7 @@ def _cg_loop_body(mv, b, x0, threshold, maxiter):
     step-order/convergence contract); ``mv`` supplies the matvec —
     COO or binned-ELL."""
     r0 = b - mv(x0)
-    rs0 = jnp.vdot(r0, r0)
+    rs0 = jnp.vdot(r0, r0, precision=_HIGHEST)
 
     def cond(state):
         _, _, _, rs, it, done = state
@@ -96,11 +100,11 @@ def _cg_loop_body(mv, b, x0, threshold, maxiter):
     def body(state):
         x, r, p, rs, it, _ = state
         sp = mv(p)
-        denom = jnp.vdot(p, sp)
+        denom = jnp.vdot(p, sp, precision=_HIGHEST)
         alpha = jnp.where(denom != 0, rs / denom, 0.0)
         x = x + alpha * p
         r = r - alpha * sp
-        rs_new = jnp.vdot(r, r)
+        rs_new = jnp.vdot(r, r, precision=_HIGHEST)
         beta = jnp.where(rs != 0, rs_new / rs, 0.0)
         p = r + beta * p
         done = jnp.sqrt(rs_new) <= threshold
@@ -116,8 +120,7 @@ def _cg_loop_body(mv, b, x0, threshold, maxiter):
 def _cg_ell_device_loop(cols_flat, vals_flat, invpos, b, x0, threshold,
                         maxiter, segs, split=True):
     """:func:`_cg_device_loop` with the matvec on the binned-ELL
-    windowed-gather kernel instead of the COO scatter-add (which costs
-    ~1.3 s/iteration at millions of nonzeros in f64 — X64-pair
+    windowed-gather kernel instead of the COO scatter-add (f64
     scatter-adds plus 1-wide gathers).  Identical step order and
     convergence test.  ``split=False`` (callers pass
     ``_hilo_safe(...)``) keeps the iterate gather exact f64 when the
@@ -450,18 +453,18 @@ class CGIterativeSparseSolver(IterativeSparseSolver):
             r = jnp.asarray(self.b) - op(x, split=self._split)
             self._r = r
             self._p = r
-            self._rs = jnp.vdot(r, r)
+            self._rs = jnp.vdot(r, r, precision=_HIGHEST)
 
     def solve_iteration(self):
         self._ensure_state()
         op = self._operator()
         p = self._p
         sp = op(p, split=self._split)
-        denom = jnp.vdot(p, sp)
+        denom = jnp.vdot(p, sp, precision=_HIGHEST)
         alpha = jnp.where(denom != 0, self._rs / denom, 0.0)
         x = jnp.asarray(self.x) + alpha * p
         r = self._r - alpha * sp
-        rs_new = jnp.vdot(r, r)
+        rs_new = jnp.vdot(r, r, precision=_HIGHEST)
         beta = jnp.where(self._rs != 0, rs_new / self._rs, 0.0)
         self._p = r + beta * p
         self._r = r
@@ -558,10 +561,10 @@ def _fgmres_cycle_body(mv, b, x, threshold, n, restart):
         row_mask = (
             jnp.arange(restart + 1) <= j
         ).astype(x.dtype)
-        h1 = (V @ w) * row_mask
-        w = w - V.T @ h1
-        h2 = (V @ w) * row_mask
-        w = w - V.T @ h2
+        h1 = jnp.dot(V, w, precision=_HIGHEST) * row_mask
+        w = w - jnp.dot(V.T, h1, precision=_HIGHEST)
+        h2 = jnp.dot(V, w, precision=_HIGHEST) * row_mask
+        w = w - jnp.dot(V.T, h2, precision=_HIGHEST)
         hcol = h1 + h2
         hj1 = jnp.linalg.norm(w)
         hcol = hcol.at[j + 1].set(hj1)
@@ -605,14 +608,14 @@ def _fgmres_cycle_body(mv, b, x, threshold, n, restart):
     def back(idx, y):
         i = restart - 1 - idx
         valid = i < ju
-        num = g[i] - jnp.dot(R[i, :restart], y)
+        num = g[i] - jnp.dot(R[i, :restart], y, precision=_HIGHEST)
         den = jnp.where(R[i, i] == 0, 1.0, R[i, i])
         return y.at[i].set(jnp.where(valid, num / den, 0.0))
 
     y = jax.lax.fori_loop(
         0, restart, back, jnp.zeros((restart,), x.dtype)
     )
-    x_new = x + V[:restart].T @ y
+    x_new = x + jnp.dot(V[:restart].T, y, precision=_HIGHEST)
     resid = jnp.abs(g[jnp.minimum(ju, restart)])
     resid = jnp.where(ju == 0, beta, resid)
     return x_new, resid, ju

@@ -10,10 +10,10 @@ as the opaque factorization handle.
 
 The backing factorization is a dense LU on the device (``lu_factor`` /
 ``lu_solve``): sparse direct factorization's pointer-chasing elimination
-tree maps poorly to the MXU, while a densified LU at the sizes this API
-is used for is bandwidth-cheap and numerically identical.  Complex
-systems on backends without native complex support use the real 2n×2n
-embedding [[Re, -Im], [Im, Re]].
+tree maps poorly to dense matrix units, while a densified LU at the
+sizes this API is used for is bandwidth-cheap and numerically
+identical.  Complex systems on backends without native complex support
+use the real 2n×2n embedding [[Re, -Im], [Im, Re]].
 
 Phase semantics asserted by the reference tests
 (``tests/test_pardiso.py``): phase 11 leaves X zero but mutates ``pt``;
@@ -106,12 +106,12 @@ _next_key = itertools.count(1)
 
 def _needs_iterative(A_container, n):
     """True when the dense-LU backing store would blow the device
-    budget (a_dense f64 + f32 LU ~ 12 bytes/element on the TPU mixed
+    budget (a_dense f64 + f32 LU ~ 12 bytes/element on the mixed
     path) and the solve must go matrix-free instead."""
     budget = int(getattr(config, "pardiso_dense_budget_bytes", 2 << 30))
     n_eff = 2 * n if (
         np.dtype(A_container.dtype).kind == "c"
-        and not _backend.supports_native_complex()
+        and not _backend.has_native_complex()
     ) else n
     return n_eff * n_eff * 12 > budget
 
@@ -130,7 +130,7 @@ def _lu_solve(lu, piv, b, trans=0):
 def _lu_solve_refined(lu32, piv, a_dense64, b64, max_steps, trans=0):
     """Mixed-precision direct solve: f32 LU + f64 iterative refinement.
 
-    XLA:TPU implements LuDecomposition only for F32/C64, so on TPU the
+    On a backend without an f64 LU (``backend.has_f64_lu``) the
     factor is computed in f32 and each refinement step recovers ~7
     digits: x += LU^-1 (b - op(A) x) with the residual in exact f64.
     The loop runs on device (no host syncs) until the residual stalls
@@ -150,7 +150,7 @@ def _lu_solve_refined(lu32, piv, a_dense64, b64, max_steps, trans=0):
     tol = 1e-13 * jnp.maximum(b_norm, 1e-300)
 
     def resid(x):
-        return b64 - jnp.dot(a_op, x)
+        return b64 - jnp.dot(a_op, x, precision=jax.lax.Precision.HIGHEST)
 
     x0 = solve32(b64)
 
@@ -365,11 +365,11 @@ def pardiso(A, B, pt, mtype, iparm, phase=13, maxfct=1, mnum=1, perm=None,
         a_dense, embedded = _densify_real_embedding(A_container, n)
         mixed = (
             a_dense.dtype == jnp.float64
-            and not _backend.supports_f64_lu()
+            and not _backend.has_f64_lu()
         )
         if mixed:
-            # TPU: LuDecomposition exists only for F32/C64 — factor in
-            # f32, keep dense A for f64 iterative refinement at solve.
+            # No f64 LU on this backend: factor in f32, keep dense A
+            # for f64 iterative refinement at solve.
             lu, piv = _lu_factor(a_dense.astype(jnp.float32))
             state["a_dense"] = a_dense
         else:
@@ -457,10 +457,10 @@ def pardiso(A, B, pt, mtype, iparm, phase=13, maxfct=1, mnum=1, perm=None,
             if mixed:
                 if jnp.iscomplexobj(b_dev):
                     # Complex RHS over a REAL mixed-precision factor
-                    # (e.g. GPU backends where supports_f64_lu() is
-                    # False): solve the real and imaginary parts
-                    # separately — the old .astype(float64) cast
-                    # silently dropped Im(B) (review r5 finding).
+                    # (a backend without f64 LU): solve the real and
+                    # imaginary parts separately — the old
+                    # .astype(float64) cast silently dropped Im(B)
+                    # (review r5 finding).
                     # scipy trans 1 (A^T) and 2 (A^H) coincide on a
                     # real operator.
                     xr = _solve(jnp.real(b_dev), trans=min(trans, 1))

@@ -1,13 +1,13 @@
 """Sparse QR least-squares solver.
 
-TPU-native replacement for the reference's MKL multifrontal sparse QR
+JAX/XLA replacement for the reference's MKL multifrontal sparse QR
 (``/root/reference/sparse_dot_mkl/_sparse_qr_solver.py``): solve
 min ||AX - B|| for sparse A (CSR required; CSC accepted with
 ``cast=True``), dense B, float32/float64 only.
 
 Where MKL runs reorder -> factorize -> solve phases on pointer-chasing
-frontal matrices, the TPU path uses a dense blocked Householder QR on the
-MXU: A is densified on device (sparse structure does not help the MXU at
+frontal matrices, this path uses a dense blocked Householder QR on the
+device: A is densified (sparse structure does not help a dense QR at
 these aspect ratios — the QR flops are effectively free next to the
 memory traffic) and ``R x = Q^T b`` is solved with a triangular solve.
 For matrices too large to densify, an LSMR-style iterative path over the
@@ -130,9 +130,8 @@ def _cgls_ell_loop(fcols, fvals, finv, acols, avals, ainv, b, m, k,
                    fsegs, asegs, tol, maxiter, d=None, split=True):
     """CGLS over binned-ELL matvecs: both op(A) directions run as
     windowed gathers + segment reduces (``_xla.ell_spmm_binned``) —
-    no f64 scatter-adds and no 1-wide gathers.  The COO loop's matvec
-    pair cost ~1.3 s/iteration at 1.2M x 50k / 4.65M nnz (X64-pair
-    scatter-add + 1-wide f64 gathers); this form measures ~60 ms.
+    no f64 scatter-adds and no 1-wide gathers, which the COO loop's
+    matvec pair needs.
     ``split=False`` keeps iterate gathers exact f64 when the problem
     scale is outside the hi|lo split's f32 range (see
     ``iterative._hilo_safe``)."""
@@ -186,7 +185,7 @@ def _sparse_qr(matrix_a, matrix_b):
         m * n * np.dtype(A.dtype).itemsize > _QR_DENSIFY_BUDGET
         or (
             np.dtype(A.dtype) == np.float64
-            and not _backend.supports_f64_qr()
+            and not _backend.has_f64_qr()
         )
     )
     if use_cgls:

@@ -36,7 +36,8 @@ VECTOR = make_vector(300)
 class ForcePlanarMixin:
     """Re-run a complex test class with planar complex storage forced.
 
-    On TPU every complex op executes the planar 4-product decomposition
+    On a backend without native complex every complex op executes the
+    planar 4-product decomposition
     (``formats._use_planar``); the CPU test backend has native complex,
     so without this mixin the planar branches would never run under
     coverage.  Mix in FIRST so setUp flips the switch before fixtures

@@ -1,9 +1,9 @@
-"""Regression tests for the round-2 id()-reuse cache hazards
-(VERDICT r2 weak #7): a freed array's id() can be recycled by a new
-allocation, so caches keyed by bare id() could silently serve a
-previous matrix's values.  Round 3 replaced those keys with held
-references (compared by identity — a held object's id can never be
-recycled) and never-reused monotone structure tokens.
+"""Regression tests for the round-2 id()-reuse cache hazards: a freed
+array's id() can be recycled by a new allocation, so caches keyed by
+bare id() could silently serve a previous matrix's values.  Round 3
+replaced those keys with held references (compared by identity — a
+held object's id can never be recycled) and never-reused monotone
+structure tokens.
 """
 
 import gc
@@ -132,8 +132,8 @@ class TestSteadyStateValueRange(unittest.TestCase):
     """f64 SpGEMM steady state (plane + extraction-structure caches)
     must move values EXACTLY when the Ozaki gate is off (e.g. CPU):
     the hi|lo pair gather re-rounds at ~2^-49 and saturates outside
-    f32 range, so the driver must pick the exact scatter (ADVICE r4:
-    repeat calls silently differed from the first on legal f64)."""
+    f32 range, so the driver must pick the exact scatter (repeat calls
+    once silently differed from the first on legal f64)."""
 
     def test_repeat_calls_exact_beyond_f32_range(self):
         rng = np.random.default_rng(41)

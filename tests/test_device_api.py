@@ -119,56 +119,83 @@ class TestTransferCache(unittest.TestCase):
             config.device_transfer_cache = True
 
 
-class TestPallasBSRInterpret(unittest.TestCase):
-    """Pallas block-sparse kernel vs oracle in interpreter mode (the
-    compiled path needs real TPU hardware)."""
+class TestBSRBatchedProduct(unittest.TestCase):
+    """The batched block product (``_xla.bsr_spmm``) that every BSR SpMM
+    takes, at the 128x128 f32 blocks of the BSR benchmark shape."""
 
-    def test_bsr_kernel_interpret(self):
-        from sparse_dot_tpu.ops.pallas_bsr import bsr_spmm_pallas
+    @staticmethod
+    def _case(bs=128, nbr=4, nbc=3, density=0.5, n=130, seed=0):
+        rng = np.random.default_rng(seed)
+        pat = sps.random(nbr, nbc, density=density, format="csr",
+                         random_state=seed + 1)
+        pat.sort_indices()
+        data = rng.standard_normal((pat.nnz, bs, bs)).astype(np.float32)
+        A = sps.bsr_matrix((data, pat.indices, pat.indptr),
+                           shape=(nbr * bs, nbc * bs))
+        b = rng.standard_normal((nbc * bs, n)).astype(np.float32)
+        rows = np.repeat(np.arange(nbr), np.diff(pat.indptr))
+        return A, b, data, rows, pat.indices
 
-        bs = 8
-        m, k, n = 64, 80, 256
-        rng = np.random.default_rng(0)
-        A = sps.random(m // bs, k // bs, density=0.4, format="csr",
-                       random_state=1)
-        nb = A.nnz
-        data = rng.random((nb, bs, bs)).astype(np.float32)
-        rowmap = np.repeat(
-            np.arange(m // bs), np.diff(A.indptr)
-        ).astype(np.int32)
-        colidx = A.indices.astype(np.int32)
-        b = rng.random((k, n)).astype(np.float32)
+    def test_bsr_spmm_bs128_f32(self):
+        A, b, data, rows, cols = self._case()
+        out = _xla.bsr_spmm(jnp.asarray(data), jnp.asarray(rows),
+                            jnp.asarray(cols), jnp.asarray(b),
+                            m=A.shape[0])
+        ref = A.astype(np.float64) @ b.astype(np.float64)
+        self.assertEqual(out.dtype, jnp.float32)
+        npt.assert_allclose(np.asarray(out), ref, rtol=1e-5,
+                            atol=1e-5 * np.abs(ref).max())
 
-        out = bsr_spmm_pallas(
-            jnp.asarray(rowmap), jnp.asarray(colidx),
-            jnp.asarray(data), jnp.asarray(b),
-            m=m, bs=bs, interpret=True,
-        )
-        ref = sps.bsr_matrix(
-            (data, colidx, A.indptr), shape=(m, k)
-        ).toarray() @ b
-        npt.assert_allclose(np.asarray(out), ref, rtol=2e-5, atol=2e-5)
+    def test_bsr_spmm_bs128_f32_accumulate(self):
+        A, b, data, rows, cols = self._case(seed=3)
+        c0 = np.random.default_rng(4).standard_normal(
+            (A.shape[0], b.shape[1])).astype(np.float32)
+        out = _xla.bsr_spmm(jnp.asarray(data), jnp.asarray(rows),
+                            jnp.asarray(cols), jnp.asarray(b),
+                            m=A.shape[0], alpha=2.0, beta=0.5,
+                            c0=jnp.asarray(c0))
+        ref = (2.0 * (A.astype(np.float64) @ b.astype(np.float64))
+               + 0.5 * c0.astype(np.float64))
+        npt.assert_allclose(np.asarray(out), ref, rtol=1e-5,
+                            atol=1e-5 * np.abs(ref).max())
 
-    def test_bsr_kernel_empty_block_rows(self):
-        from sparse_dot_tpu.ops.pallas_bsr import bsr_spmm_pallas
-
-        bs = 8
-        m, k, n = 32, 32, 128
-        # only block (1, 2) stored; rows 0, 2, 3 empty
+    def test_bsr_spmm_empty_block_rows(self):
+        bs = 128
+        # only block (1, 2) stored; block rows 0, 2, 3 are empty
         data = np.ones((1, bs, bs), np.float32)
-        rowmap = np.array([1], np.int32)
-        colidx = np.array([2], np.int32)
-        b = np.ones((k, n), np.float32)
+        b = np.ones((4 * bs, 64), np.float32)
         out = np.asarray(
-            bsr_spmm_pallas(
-                jnp.asarray(rowmap), jnp.asarray(colidx),
-                jnp.asarray(data), jnp.asarray(b),
-                m=m, bs=bs, interpret=True,
-            )
+            _xla.bsr_spmm(jnp.asarray(data), jnp.asarray([1]),
+                          jnp.asarray([2]), jnp.asarray(b), m=4 * bs)
         )
-        npt.assert_allclose(out[:8], 0.0)
-        npt.assert_allclose(out[8:16], 8.0)
-        npt.assert_allclose(out[16:], 0.0)
+        npt.assert_allclose(out[:bs], 0.0)
+        npt.assert_allclose(out[bs:2 * bs], float(bs))
+        npt.assert_allclose(out[2 * bs:], 0.0)
+
+    def test_dot_product_bsr_bs128_f32_out(self):
+        """Public path: 128x128 f32 BSR with out=/out_scalar= takes the
+        batched product (the only BSR SpMM route)."""
+        A, b, _, _, _ = self._case(seed=5)
+        out = np.random.default_rng(6).standard_normal(
+            (A.shape[0], b.shape[1])).astype(np.float32)
+        ref = (A.astype(np.float64) @ b.astype(np.float64)
+               + 2.0 * out.astype(np.float64))
+        calls = []
+        orig = _xla.bsr_spmm
+
+        def spy(*args, **kwargs):
+            calls.append(1)
+            return orig(*args, **kwargs)
+
+        _xla.bsr_spmm = spy
+        try:
+            res = sdt.dot_product(A, b, out=out, out_scalar=2.0)
+        finally:
+            _xla.bsr_spmm = orig
+        self.assertIs(res, out)
+        self.assertEqual(len(calls), 1)
+        npt.assert_allclose(res, ref, rtol=1e-5,
+                            atol=1e-5 * np.abs(ref).max())
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Per-row padded (ELL) SpMM/SpMV path: the scatter-free TPU kernel
+"""Per-row padded (ELL) SpMM/SpMV path: the scatter-free kernel
 layout.  Forced on with ``config.ell_spmm_enabled = "always"`` so the
 path runs on the CPU test backend; results checked against the scipy
 oracle like every other op suite (reference strategy,
@@ -125,7 +125,7 @@ class TestEllSpMM(_ForceEll):
 
     def test_scalar_and_out_together_device_epilogue(self):
         """alpha AND beta*out in one pass — the accumulate runs as a
-        device epilogue since round 4 (VERDICT r3 item 3); results must
+        device epilogue since round 4; results must
         match the reference contract alpha*A@B + out_scalar*out."""
         for dt, dec in ((np.float64, 9), (np.float32, 4)):
             X = sps.random(300, 200, density=0.03, format="csr",

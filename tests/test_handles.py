@@ -134,9 +134,10 @@ class TestHandles(unittest.TestCase):
 
 
 class TestHandlesPlanarComplex(unittest.TestCase):
-    """Handle round-trips with planar complex storage forced (the TPU
-    representation): create/export and the device CSC->CSR conversion
-    must preserve complex values bit-for-bit through the split."""
+    """Handle round-trips with planar complex storage forced (the
+    representation without native complex): create/export and the
+    device CSC->CSR conversion must preserve complex values
+    bit-for-bit through the split."""
 
     def setUp(self):
         from sparse_dot_tpu.config import config

@@ -29,7 +29,8 @@ GRID = [
     (np.float64, 11, False, False),
     (np.complex64, 13, True, False),
     (np.complex128, 13, False, False),
-    # Planar storage: the path complex systems take on TPU (real 2n x 2n
+    # Planar storage: the path complex systems take without native
+    # complex (real 2n x 2n
     # embedding behind the planar container).
     (np.complex64, 13, True, True),
     (np.complex128, 13, False, True),

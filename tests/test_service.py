@@ -81,9 +81,9 @@ def test_debug_mode_flag():
 
 def test_full_f64_range_capability_and_no_warning_on_cpu():
     """CPU backends represent full f64; the range warning must NOT
-    fire there, and the capability probe must say so.  (On TPU the
-    X64 pair emulation caps the exponent range at f32's; the op layer
-    warns — exercised by the TPU verify drive, not the CPU suite.)"""
+    fire there, and the capability predicate must say so.  (A backend
+    emulating f64 with f32 pairs caps the exponent range at f32's; the
+    op layer warns there.)"""
     import warnings
 
     import numpy as np
@@ -91,7 +91,7 @@ def test_full_f64_range_capability_and_no_warning_on_cpu():
 
     from sparse_dot_tpu import backend, dot_product
 
-    assert backend.supports_full_f64_range() is True
+    assert backend.has_native_f64() is True
     A = sps.random(40, 50, density=0.2, format="csr",
                    dtype=np.float64, random_state=3)
     A.data *= 1e200

@@ -328,8 +328,8 @@ class TestEllSolverLoops(unittest.TestCase):
     """Non-degenerate binned-ELL layouts so the gather-form solver
     loops (round 4) actually run on the CPU suite — the 8x8 protocol
     fixtures degenerate to the COO fallback (pad-ratio gate), which is
-    how a missing-argument bug in the ELL FGMRES path slipped past the
-    suite and had to be caught by the TPU verify drive."""
+    how a missing-argument bug in the ELL FGMRES path once slipped past
+    the suite."""
 
     def setUp(self):
         n = 2000
@@ -449,7 +449,7 @@ class TestEllHiloRangeGate(unittest.TestCase):
     """The binned-ELL loops split f64 iterates into hi|lo f32 pairs —
     exact inside f32's range, but |x| beyond ~3.4e38 saturates to inf.
     b outside that range must route to the exact-f64 gather
-    (``_hilo_safe`` gate, ADVICE r4) and still solve correctly."""
+    (``_hilo_safe`` gate) and still solve correctly."""
 
     def _system(self):
         n = 2000

@@ -186,7 +186,8 @@ except ImportError:
 
 
 
-# Planar-storage reruns: the decomposition every complex op uses on TPU
+# Planar-storage reruns: the decomposition every complex op uses without
+# native complex
 # (see tests.common.ForcePlanarMixin).
 from .common import ForcePlanarMixin
 

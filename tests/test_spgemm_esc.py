@@ -29,7 +29,7 @@ class TestESCKernel(unittest.TestCase):
         self._budget = config.spgemm_esc_block_elements
         # Pin the expand-sort-compress kernel: these are kernel-level
         # checks, and the adaptive driver would route these sizes to
-        # the MXU row-blocked body.
+        # the dense row-blocked body.
         config.spgemm_esc_force_sort = True
 
     def tearDown(self):
@@ -178,7 +178,7 @@ class TestESCKernel(unittest.TestCase):
 
 class TestESCAdaptiveRouting(unittest.TestCase):
     """The any-size driver picks the right algorithm per workload: the
-    MXU row-blocked body when densified B fits, the sort kernel when it
+    dense row-blocked body when densified B fits, the sort kernel when it
     cannot — both structurally exact."""
 
     def test_routes_to_dense_ladder_when_b_fits(self):
@@ -220,7 +220,7 @@ class TestESCAdaptiveRouting(unittest.TestCase):
         np_almost_equal(C, A @ B)
 
     def test_complex_stays_on_sort_kernel(self):
-        # The blocked MXU body is real-only; complex products keep the
+        # The blocked dense body is real-only; complex products keep the
         # sort kernel regardless of size.
         A, B = make_matrixes(60, 50, 40, 0.1)
         Ac = (A + 1j * A.multiply(0.5)).tocsr()
@@ -234,7 +234,7 @@ class TestESCAdaptiveRouting(unittest.TestCase):
         np_almost_equal(C, Ac @ Bc)
 
     def test_blocked_mxu_body_with_ozaki(self):
-        # The row-blocked MXU body's Ozaki branch (hi/lo block densify
+        # The row-blocked dense body's Ozaki branch (hi/lo block densify
         # + matmul_hilo) — forced on, since the CPU auto-gate would
         # pick the plain dot.
         old_block = hops._SPGEMM_ROW_BLOCK
